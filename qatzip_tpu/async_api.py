@@ -6,7 +6,7 @@ exposed both as a Future and via the reference-style callback
 (include/qatzip.h:922: qzCallbackFn(external, src, src_len, dest, dest_len,
 rc, ext_rc)).
 
-On TPU the real async engine is JAX's own async dispatch — the worker simply
+On the device the real async engine is JAX's own async dispatch — the worker simply
 keeps the device queue fed with chunk batches while completions drain in
 submission order, which is what the reference's consumer/poller pair does
 for the ASIC.

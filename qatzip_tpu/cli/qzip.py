@@ -258,7 +258,7 @@ def _process_stdio(args):
 def make_parser():
     ap = argparse.ArgumentParser(
         prog="qzip",
-        description="TPU-accelerated compression (qzip-compatible CLI)")
+        description="Device-accelerated compression (qzip-compatible CLI)")
     ap.add_argument("-d", dest="decompress", action="store_true",
                     help="decompress")
     ap.add_argument("-k", dest="keep", action="store_true",

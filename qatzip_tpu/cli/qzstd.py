@@ -19,10 +19,20 @@ import time
 from qatzip_tpu import constants as C
 
 
+def _zstandard():
+    """The optional ``zstandard`` package, which only this tool needs."""
+    try:
+        import zstandard
+    except ImportError as exc:
+        raise SystemExit("qzstd needs the 'zstandard' package, which is "
+                         "not installed") from exc
+    return zstandard
+
+
 def make_zstd_callback(level: int = 1):
     """Returns (callback, external) implementing qzLZ4SCallbackFn
     (reference include/qatzip.h:448, utils/qzstd.c:212-279)."""
-    import zstandard
+    zstandard = _zstandard()
 
     cctx = zstandard.ZstdCompressor(level=max(1, min(level, 19)))
 
@@ -71,7 +81,7 @@ def main(argv=None):
             data = f.read()
         if args.decompress:
             import io
-            import zstandard
+            zstandard = _zstandard()
             dctx = zstandard.ZstdDecompressor()
             out = bytearray()
             with dctx.stream_reader(io.BytesIO(bytes(data)),

@@ -28,14 +28,14 @@ QZ_BUF_ERROR = -3             # Insufficient buffer error
 QZ_DATA_ERROR = -4            # Input data was corrupted
 QZ_TIMEOUT = -5               # Operation timed out
 QZ_INTEG = -100               # Integrity check failed
-QZ_NO_HW = 11                 # Using SW: no TPU detected
+QZ_NO_HW = 11                 # Using SW: no device detected
 QZ_NO_MDRV = 12               # Using SW: no memory driver detected
 QZ_NO_INST_ATTACH = 13        # Using SW: could not attach to an instance
 QZ_LOW_MEM = 14               # Using SW: not enough device memory
 QZ_LOW_DEST_MEM = 15          # Using SW: not enough device memory for dest buffer
 QZ_UNSUPPORTED_FMT = 16       # Using SW: device does not support data format
 QZ_NONE = 100                 # Device uninitialized
-QZ_NOSW_NO_HW = -101          # Not using SW: no TPU detected
+QZ_NOSW_NO_HW = -101          # Not using SW: no device detected
 QZ_NOSW_NO_MDRV = -102        # Not using SW: no memory driver detected
 QZ_NOSW_NO_INST_ATTACH = -103 # Not using SW: could not attach to instance
 QZ_NOSW_LOW_MEM = -104        # Not using SW: not enough device memory

@@ -5,9 +5,9 @@ reference's request-level parallelism, src/qatzip.c:1505-1594) and hands the
 batch to a backend.  Backends:
 
   * CpuBackend  — zlib / portable LZ4 (the reference's qatzip_sw.c role)
-  * TpuBackend  — JAX/Pallas kernels (the reference's QAT ASIC role)
+  * DeviceBackend — JAX device kernels (the reference's QAT ASIC role)
 
-A backend works on whole batches so the TPU path can fuse all chunks of a
+A backend works on whole batches so the device path can fuse all chunks of a
 request into one device dispatch.
 """
 from __future__ import annotations

@@ -53,6 +53,7 @@ class EngineState:
     initialized: bool = False
     init_status: int = C.QZ_NONE
     hw_present: bool = False
+    platform: str = ""
     device_kind: str = ""
     num_devices: int = 0
     cpu_backend: CpuBackend = dataclasses.field(default_factory=CpuBackend)
@@ -66,23 +67,20 @@ _engine = EngineState()
 _engine_lock = threading.Lock()
 
 
-def _discover_hw() -> tuple[bool, str, int, Backend | None]:
-    """TPU device discovery: the qzInit device-scan analog.
+def _discover_hw() -> Backend | None:
+    """Device discovery: the qzInit device-scan analog.
 
-    Returns (present, device_kind, num_devices, backend).  Set
+    Returns the device backend, or None without one.  Set
     QATZIP_TPU_FORCE_SW=1 to simulate a machine without an accelerator.
     """
     if os.environ.get("QATZIP_TPU_FORCE_SW", "0") == "1":
-        return False, "", 0, None
+        return None
     try:
-        from qatzip_tpu.engine.tpu_backend import TpuBackend
-        backend = TpuBackend.create()
-        if backend is None:
-            return False, "", 0, None
-        return True, backend.device_kind, backend.num_devices, backend
+        from qatzip_tpu.engine.device_backend import DeviceBackend
+        return DeviceBackend.create()
     except Exception as exc:  # pragma: no cover - environment dependent
-        QZ_WARN("TPU discovery failed: %s", exc)
-        return False, "", 0, None
+        QZ_WARN("device discovery failed: %s", exc)
+        return None
 
 
 def engine() -> EngineState:
@@ -96,10 +94,12 @@ def qz_init_engine(sw_backup: int = C.QZ_SW_BACKUP_DEFAULT) -> int:
     with _engine_lock:
         if _engine.initialized:
             return C.QZ_DUPLICATE
-        present, kind, ndev, backend = _discover_hw()
+        backend = _discover_hw()
+        present = backend is not None
         _engine.hw_present = present
-        _engine.device_kind = kind
-        _engine.num_devices = ndev
+        _engine.platform = backend.platform if present else ""
+        _engine.device_kind = backend.device_kind if present else ""
+        _engine.num_devices = backend.num_devices if present else 0
         _engine.hw_backend = backend
         _engine.initialized = True
         if present:

@@ -2,7 +2,7 @@
 
 Plays the role of qatzip_sw.c in the reference: byte-compatible output
 formats produced with host-only code (zlib for deflate, portable LZ4/LZ4s
-codecs).  Used when the TPU is absent, for sub-threshold inputs, for sticky
+codecs).  Used when the device is absent, for sub-threshold inputs, for sticky
 force-SW mode, and as the mid-request failover target (reference
 src/qatzip_sw.c:697-846).
 """

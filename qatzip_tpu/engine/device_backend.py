@@ -1,4 +1,4 @@
-"""TPU backend: routes chunk batches to JAX/Pallas codec kernels.
+"""Device backend: routes chunk batches to the JAX device codec kernels.
 
 This is the analog of the QAT ASIC + instance pool in the reference
 (src/qatzip.c:363-437, 1483-1764): chunks are batched into fixed-shape
@@ -11,6 +11,8 @@ exactly like the reference's isQATProcessable gate
 """
 from __future__ import annotations
 
+import os
+import warnings
 from typing import Sequence
 
 from qatzip_tpu.constants import DataFormatInternal, QzDirection
@@ -18,24 +20,39 @@ from qatzip_tpu.engine.backend import Backend, CompressedChunk, DecompressedChun
 from qatzip_tpu.session import InternalParams
 
 
-class TpuBackend(Backend):
-    name = "tpu"
+def cpu_requested() -> bool:
+    """True when the process asked JAX for the CPU platform first
+    (``JAX_PLATFORMS=cpu``, as the tests and CPU rehearsals set it)."""
+    import jax
+
+    names = jax.config.jax_platforms or os.environ.get("JAX_PLATFORMS", "")
+    return names.split(",")[0].strip() == "cpu"
+
+
+class DeviceBackend(Backend):
+    name = "device"
     is_hw = True
 
     def __init__(self, devices):
         self.devices = devices
-        self.device_kind = devices[0].device_kind if devices else "unknown"
+        self.platform = devices[0].platform
+        self.device_kind = devices[0].device_kind
         self.num_devices = len(devices)
-        self._codecs = {}
 
     @classmethod
-    def create(cls) -> "TpuBackend | None":
-        try:
-            import jax
-            devices = jax.devices()
-        except Exception:
-            return None
-        if not devices:
+    def create(cls) -> "DeviceBackend | None":
+        """The backend over JAX's default devices, or None (with a warning
+        that says why) when there is no accelerator.  JAX falls back to
+        its CPU backend when no accelerator plugin starts; that backend
+        serves as the device only when the process asked for it."""
+        import jax
+
+        devices = jax.devices()
+        if devices[0].platform == "cpu" and not cpu_requested():
+            warnings.warn("qatzip_tpu: no accelerator found (JAX offers only "
+                          "its CPU backend and JAX_PLATFORMS does not ask "
+                          "for it); running software-only", RuntimeWarning,
+                          stacklevel=2)
             return None
         from qatzip_tpu.engine.instances import pool
         pool.resize(len(devices))

@@ -60,7 +60,7 @@ def inject_error(kind: str, nth: int = 1, direction: str | None = None,
     """Arm a fault: the ``nth`` event at site ``kind`` (optionally filtered
     by direction) fails, for ``count`` consecutive events (-1 = until
     cleared).  The reference's ERR_INJECTION list is per-session; here the
-    injector is process-global because the TPU device (like the ASIC) is a
+    injector is process-global because the device (like the ASIC) is a
     process-wide resource."""
     if kind not in ("submit", "death", "poison", "checksum"):
         raise ValueError(f"unknown fault kind {kind!r}")

@@ -4,7 +4,7 @@ The reference gives every in-flight buffer four monotonic counters
 (src1/src2/sink1/sink2, src/qatzip_internal.h:155-171); the completion
 callback asserts their legal ordering and logs "FLOW ERROR" on violation
 (src/qatzip.c:209-243), and buffer reuse requires all four equal
-(:402-437).  The TPU pipeline has no shared DMA buffers to race on, but
+(:402-437).  The device pipeline has no shared DMA buffers to race on, but
 the same invariant matters: every chunk planned for a request must be
 submitted to exactly one backend, produce exactly one result, and be
 reassembled in submission order.

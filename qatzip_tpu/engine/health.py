@@ -5,7 +5,7 @@ The reference polls device fatal events every 1 ms on a dedicated thread
 status on RESTARTING/RESTARTED/FATAL events (:245-265), and every submit
 loop checks it to reroute chunks to SW (:1514-1522).
 
-TPU translation: there is no driver event stream, so health is derived
+Device translation: there is no driver event stream, so health is derived
 from (a) request outcomes — consecutive device failures trip the breaker —
 and (b) an optional low-rate active probe thread that runs a trivial
 device op (QATZIP_TPU_HEARTBEAT_S seconds; 0 = passive, the default).

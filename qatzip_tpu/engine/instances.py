@@ -3,7 +3,7 @@
 The reference multiplexes N threads onto M hardware instances with a
 spin-lock grab, a capability filter, and a round-robin hint
 (qzGrabInstance, src/qatzip.c:363-437), shuffling instances across PCIe
-devices for load balance (:796-808).  The TPU analog: each chip accepts a
+devices for load balance (:796-808).  The device analog: each device accepts a
 bounded number of concurrently dispatching sessions — beyond that, JAX
 dispatch queues serialize anyway while Python-side submitters pile up
 unbounded.  This pool bounds concurrent device entries to

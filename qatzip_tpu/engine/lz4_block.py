@@ -11,7 +11,7 @@ means "no match", every non-terminal sequence carries the 2-byte offset even
 when the match length is zero, and the terminal sequence is literals-only.
 
 This module is the correctness oracle and CPU fallback; the native C++
-extension (qatzip_tpu/native) and the TPU kernels (qatzip_tpu/ops) implement
+extension (qatzip_tpu/native) and the device kernels (qatzip_tpu/ops) implement
 the same contracts.
 """
 from __future__ import annotations

@@ -3,7 +3,7 @@
 Plays the role of the reference's pinned-memory manager + address page
 table (src/qatzip_mem.c:169-226, src/qatzip_page_table.h:122-167).  On QAT
 the point of qzMalloc is DMA-able memory the ASIC can read directly; the
-TPU analog is a host buffer the engine can hand to ``jax.device_put``
+device analog is a host buffer the engine can hand to ``jax.device_put``
 without an extra copy.  The registry classifies any buffer as
 pinned/not-pinned in O(1), the page table's job.
 

@@ -3,7 +3,7 @@
 // The reference keeps its entire hot request loop in C — chunk split, DMA
 // submit, ordered reassembly, header/footer generation and CRC stitching
 // (src/qatzip.c:1483-1764, src/qatzip_utils.c:888-995).  This file is the
-// equivalent for the TPU build's host path: ONE C call per request that
+// equivalent for this framework's host path: ONE C call per request that
 //   - splits the input into hw_buff_sz chunks,
 //   - compresses every chunk on a worker pool (the analog of the 32
 //     in-flight HW requests, src/qatzip_internal.h:65-70),

@@ -660,7 +660,7 @@ extern "C" {
 // verified device-side); this routine re-verifies and EXTENDS each match
 // by direct byte compare, runs the greedy(+lazy) parse, and entropy-codes
 // with the same block emitter as the pure-host path.  This is the QAT
-// split with roles swapped: the TPU plays the search ASIC, the host plays
+// split with roles swapped: the device plays the search ASIC, the host plays
 // the driver's assembly stage (reference src/qatzip.c:1483-1764).
 int64_t qz_deflate_candidates(const uint8_t* src, int64_t n,
                               const uint16_t* cand, uint8_t* dst,
@@ -1296,7 +1296,7 @@ int64_t qz_inflate(const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
 }
 
 // ---------------------------------------------------------------------------
-// Batch Huffman/header build for the device (TPU) encoder's hybrid split:
+// Batch Huffman/header build for the device encoder's hybrid split:
 // the device computes per-block litlen/dist histograms (K1), this routine
 // builds true length-limited Huffman tables + the RLE-compressed dynamic
 // header bit-fields + the block-mode decision on the host (the 286-entry

@@ -2,7 +2,7 @@
 
 The reference's ASIC returns the chunk checksum with every completed
 request (outputChecksum, src/qatzip.c:1699-1718), so the host never
-re-scans the data.  The TPU analog: CRC32 is GF(2)-linear in the message
+re-scans the data.  The device analog: CRC32 is GF(2)-linear in the message
 bits, so a batch of blocks reduces with a log-depth combine tree built
 from constant 32x32 bit matrices ("advance register by 2^k zero bytes"),
 with per-word leaf CRCs as 32 elementwise select-XORs — no gathers, no

@@ -1,8 +1,7 @@
 """Arithmetic (gather-free) DEFLATE code computations.
 
-TPU gathers cost ~8ns/element through XLA while elementwise chains are
-essentially free, so the RFC1951 length/distance code tables are computed
-arithmetically:
+The RFC1951 length/distance code tables are computed arithmetically, as
+elementwise chains with no table gathers:
 
   length L in [3,258], l = L-3:
     l < 8:   code 257+l, eb 0
@@ -59,7 +58,7 @@ def dist_code(mdist: jnp.ndarray):
 
 
 def onehot_lookup(indices: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """table[indices] as a one-hot MXU matmul (indices [..., n], table [k, c]).
+    """table[indices] as a one-hot matmul (indices [..., n], table [k, c]).
 
     Exact for table values < 2^24.  Returns [..., n, c] float32.
     """
@@ -70,7 +69,7 @@ def onehot_lookup(indices: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
 
 
 def onehot_lookup1(indices: jnp.ndarray, table: jnp.ndarray) -> jnp.ndarray:
-    """table[indices] for a 1-D integer table via one-hot MXU matmul.
+    """table[indices] for a 1-D integer table via one-hot matmul.
 
     Exact for table values < 2^24.  Returns int32 with indices' shape.
     """

@@ -1,4 +1,4 @@
-"""DEFLATE decoder on device (JAX/XLA) — the TPU analog of the reference's
+"""DEFLATE decoder on device (JAX/XLA) — the device analog of the reference's
 HW decompress path (cpaDcDecompressData, reference src/qatzip.c:2103-2355,
 :2446-2671).
 
@@ -209,7 +209,7 @@ def _ffill_key24(marker, vals):
     """Forward-fill 24-bit vals from marker positions: uint32 cummax over
     three 8-bit value planes, each packed under a 24-bit position key —
     supports grid indices to 2^24 (the 20-bit two-plane packing silently
-    lost markers past index 2^20; ADVICE round-2 high finding)."""
+    lost markers past index 2^20)."""
     import jax
     import jax.numpy as jnp
 
@@ -461,7 +461,8 @@ def _next_pow2(x: int, lo: int) -> int:
 
 
 def inflate_batch(payloads, hints, max_rounds: int = 64,
-                  kind: str | None = None, ran_out: list | None = None):
+                  kind: str | None = None, ran_out: list | None = None,
+                  rounds_out: list | None = None):
     """Inflate complete raw-deflate streams on device.
 
     Returns a list of (data: bytes, end_of_stream: bool, checksum) entries
@@ -469,6 +470,10 @@ def inflate_batch(payloads, hints, max_rounds: int = 64,
     kernels, or None when kind is unset), or None for streams that must
     fall back to the CPU path (unsupported size, malformed-but-
     recoverable-by-zlib constructs, kernel error flags).
+
+    ``rounds_out``, when given, collects each lockstep decoder call as
+    (host input arrays, max_steps), so the decoder alone can be timed on
+    the same inputs (pallas_inflate.time_rounds).
     """
     if kind == "xxh32":
         kind = None  # not device-combinable; caller computes on host
@@ -508,7 +513,7 @@ def inflate_batch(payloads, hints, max_rounds: int = 64,
             break
         if ran_out is not None and not ran_out:
             ran_out.append(True)  # at least one real device round executed
-        _run_device_round(batch)
+        _run_device_round(batch, rounds_out)
 
     results = []
     for s in streams:
@@ -559,7 +564,7 @@ def _parse_one_header(s: _Stream) -> str:
     raise ValueError("reserved BTYPE")
 
 
-def _run_device_round(batch) -> None:
+def _run_device_round(batch, rounds_out: list | None = None) -> None:
     """Dispatch one device decode round.  Default engine: the lockstep
     token decoder (ops/pallas_inflate.py).  QATZIP_TPU_INFLATE=spec keeps
     the round-3 speculative per-bit kernel selectable for comparison."""
@@ -571,7 +576,7 @@ def _run_device_round(batch) -> None:
 
     order = sorted(batch, key=lambda s: len(s.payload) - (s.bits.pos >> 3))
     for i in range(0, len(order), PI.LANES):
-        _run_device_round_lockstep(order[i:i + PI.LANES])
+        _run_device_round_lockstep(order[i:i + PI.LANES], rounds_out)
 
 
 # -- lockstep engine (round 4) ----------------------------------------------
@@ -579,20 +584,14 @@ _LOCKSTEP_NW = (1024, 4096, 16896)       # stream words per lane (buckets)
 _LOCKSTEP_STEPS = (1024, 4096, 16384, 65664)
 
 
-def _lockstep_regions(s, spec=None):
-    """Packed table regions for one block, in the active driver's layout
-    (the Pallas lane-major driver uses smaller roots than the XLA
-    reference driver — pallas_inflate.region_spec)."""
+def _lockstep_regions(s):
+    """Packed table regions for one block (pallas_inflate layout)."""
     from qatzip_tpu.ops import pallas_inflate as PI
 
-    if spec is None:
-        spec = PI.region_spec(PI.pallas_active())
-    ll_rb, d_rb, _, _ = spec
     if getattr(s, "_lens", None) is None:
-        return PI.static_regions(ll_rb, d_rb)
+        return PI.static_regions()
     ll_lens, d_lens = s._lens
-    return (PI.build_ll_region(ll_lens, ll_rb),
-            PI.build_d_region(d_lens, d_rb))
+    return PI.build_ll_region(ll_lens), PI.build_d_region(d_lens)
 
 
 def _apply_tokens_py(lane_tokens: np.ndarray, window: bytes,
@@ -630,22 +629,20 @@ def _apply_tokens_py(lane_tokens: np.ndarray, window: bytes,
     return bytes(out)
 
 
-def _run_device_round_lockstep(batch) -> None:
+def _run_device_round_lockstep(batch, rounds_out: list | None) -> None:
     from qatzip_tpu.ops import pallas_inflate as PI
 
-    B = PI.LANES
-    spec = PI.region_spec(PI.pallas_active())
     live: list[tuple] = []
     for s in batch:
         try:
-            regions = _lockstep_regions(s, spec)
+            regions = _lockstep_regions(s)
         except ValueError:
             s.failed = True  # over-subscribed/invalid code: CPU decides
             continue
         byte0 = s.bits.pos >> 3
         words = (len(s.payload) - byte0 + 3) // 4 + 2
         if words > _LOCKSTEP_NW[-1]:
-            s.failed = True  # beyond the per-lane VMEM stream budget
+            s.failed = True  # beyond the largest per-lane stream bucket
             continue
         rem = (s.hint - len(s.out)) if (s.hint and s.hint > 0) else (1 << 16)
         rem = max(1, min(rem, MAX_OUTCAP))
@@ -653,6 +650,7 @@ def _run_device_round_lockstep(batch) -> None:
     if not live:
         return
 
+    B = PI.lane_count(len(live))
     NW = next(b for b in _LOCKSTEP_NW if b >= max(t[4] for t in live))
     need = min(65537, max(t[3] for t in live) + 2)
     MS = next(b for b in _LOCKSTEP_STEPS if b >= need)
@@ -660,8 +658,8 @@ def _run_device_round_lockstep(batch) -> None:
     stream8 = np.zeros((B, NW * 4), np.uint8)
     bit0 = np.zeros((B,), np.int32)
     nbits = np.zeros((B,), np.int32)
-    tll = np.zeros((B, spec[2]), np.uint32)
-    td = np.zeros((B, spec[3]), np.uint32)
+    tll = np.zeros((B, PI.CELLS), np.uint32)
+    td = np.zeros((B, PI.CELLS), np.uint32)
     active = np.zeros((B,), bool)
     for i, (s, regions, byte0, rem, words) in enumerate(live):
         pv = np.frombuffer(s.payload, np.uint8, len(s.payload) - byte0,
@@ -672,8 +670,10 @@ def _run_device_round_lockstep(batch) -> None:
         tll[i], td[i] = regions
         active[i] = True
 
-    tokens, err, outcnt, end_bit, _ns = PI.decode_blocks(
-        stream8.view("<u4"), bit0, nbits, tll, td, active, MS)
+    args = (stream8.view("<u4"), bit0, nbits, tll, td, active)
+    if rounds_out is not None:
+        rounds_out.append((args, MS))
+    tokens, err, outcnt, end_bit, _ns = PI.decode_blocks(*args, MS)
     tokens = np.ascontiguousarray(tokens)
 
     for i, (s, regions, byte0, rem, words) in enumerate(live):

@@ -1,12 +1,9 @@
-"""DEFLATE block encoder on device (JAX/XLA; the TPU analog of the QAT
+"""DEFLATE block encoder on device (JAX/XLA; the device analog of the QAT
 compression engine's deflate path, reference src/qatzip.c:1483-1764).
 
-The design follows the measured cost model of the target chip (PERF.md):
-random access (gather/scatter) serializes at ~10-25 ns/element, while
-sorts (~1 ns/element, variadic payloads nearly free), prefix scans and
-elementwise passes run at memory speed, and small histograms ride the MXU
-as int8 one-hot matmuls.  The pipeline is therefore built almost entirely
-from sorts and scans:
+The pipeline is built almost entirely from sorts, prefix scans and
+elementwise passes, with no random-access gathers or scatters, and small
+histograms as int8 one-hot matmuls:
 
   K1 ``analyze_blocks``  (device):
     * hash-chain candidates from ONE variadic key sort whose payloads carry
@@ -21,7 +18,7 @@ from sorts and scans:
       chain 0 -> f(0) -> ... is materialized by a segment-entry recurrence
       plus parallel segment walks (lax.scan), then one scatter builds the
       selected-position mask;
-    * litlen/dist histograms as int8 one-hot MXU matmuls.
+    * litlen/dist histograms as int8 one-hot matmuls.
   Host ``qz_huff_build_batch`` (native C++): true length-limited Huffman,
     RLE-compressed dynamic headers, stored/static/dynamic mode decision
     from exact bit costs (the CPA auto-select-best behavior, reference
@@ -115,7 +112,7 @@ def _shift_left(a: jnp.ndarray, k: int, fill) -> jnp.ndarray:
 
 def _hist_onehot(idx: jnp.ndarray, valid: jnp.ndarray, nbins: int,
                  hi_w: int = 32) -> jnp.ndarray:
-    """Histogram as factorized int8 one-hot MXU matmuls (scatter-free)."""
+    """Histogram as factorized int8 one-hot matmuls (scatter-free)."""
     nb_hi = (nbins + hi_w - 1) // hi_w
     hi = idx // hi_w
     lo = idx - hi * hi_w
@@ -333,7 +330,7 @@ def analyze_blocks(data: jnp.ndarray, lengths: jnp.ndarray, depth: int,
     sel = sel & (pos < L)
     take = sel & take
 
-    # --- histograms (position space, elementwise symbols + MXU one-hot)
+    # --- histograms (position space, elementwise symbols + one-hot matmul)
     lc, _, _ = length_code(mlen)
     lit = data[:, :n].astype(jnp.int32)
     sym = jnp.where(take, lc, lit)
@@ -363,9 +360,8 @@ def _ffill_u32(marker: jnp.ndarray, vals: jnp.ndarray) -> jnp.ndarray:
 def _lookup_sorted(table: jnp.ndarray, idx: jnp.ndarray,
                    tbits: int) -> jnp.ndarray:
     """y[b,i] = table[b, idx[b,i]] via sort-merge + forward-fill + unsort
-    (per-block tables; random gathers cost ~25ns/elem on this target while
-    sorts cost ~1ns/elem).  table: int32[B,T] values < 2^20; idx: int32
-    [B,N] in [0,T); tbits = ceil_log2(T)."""
+    (per-block tables, no random gathers).  table: int32[B,T] values
+    < 2^20; idx: int32 [B,N] in [0,T); tbits = ceil_log2(T)."""
     B, T = table.shape
     N = idx.shape[1]
     M = T + N
@@ -511,7 +507,7 @@ def encode_blocks(data, lengths, depth: int, kwords: int,
     caller (host stored-block framing).
 
     With ``mesh`` set, both device dispatches run block-data-parallel over
-    the mesh's "block" axis (B must divide by the mesh size) — the TPU
+    the mesh's "block" axis (B must divide by the mesh size) — the device
     analog of the reference's request-level chunk parallelism sharded over
     instances/devices (src/qatzip.c:1505-1594, README.md:65-66).
     """

@@ -1,7 +1,7 @@
 """Device codec adapters: batch chunks into fixed-shape arrays, dispatch the
 JAX/Pallas kernels, and unpack results into backend-contract payloads.
 
-This is the TPU analog of the reference's submit/poll pipeline
+This is the device analog of the reference's submit/poll pipeline
 (doCompressIn/doCompressOut, src/qatzip.c:1483-1764): chunks are batched into
 one device dispatch (32 in-flight requests -> one batch dimension), results
 gathered in block order.
@@ -24,12 +24,11 @@ def _stage_chunks(batch, n: int, b: int):
     """Build the [b, n+8] device input for a batch of chunks.
 
     Fast path (the qz_malloc zero-copy story carried to the device
-    boundary, VERDICT r4 #4): the funnel slices one contiguous request
-    buffer (engine/core.py compress_ext), so full batches are a single
-    [b, n] numpy VIEW over the original buffer — uploaded with no host
-    staging pass at all; the +8 guard bytes are padded on-device (HBM
-    bandwidth, ~free).  Ragged/copied batches fall back to one staged
-    copy.  Returns (dj [b, n+8] device array, lens int32[b] host).
+    boundary): the funnel slices one contiguous request buffer
+    (engine/core.py compress_ext), so full batches are a single [b, n]
+    numpy VIEW over the original buffer — uploaded with no host staging
+    pass at all; the +8 guard bytes are padded on the device.
+    Ragged/copied batches fall back to one staged copy.  Returns (dj [b, n+8] device array, lens int32[b] host).
     """
     import jax.numpy as jnp
 
@@ -83,9 +82,7 @@ class DeflateDeviceCodec:
     """Batched deflate-block compressor running on the JAX device."""
 
     # 4x the reference's NUM_BUFF=32 in-flight requests (internal.h:65):
-    # the sorts' fixed overheads keep amortizing up to B=128 — measured
-    # 0.527 GB/s at B=128 vs 0.409 at B=64 (stride-2/depth-16 L1 point,
-    # tools/probe_sort5.py round 5); B=256 is flat, so 128 is the knee
+    # one device dispatch per 8 MB of 64 KB chunks
     MAX_BATCH = 128
 
     def __init__(self):
@@ -103,12 +100,10 @@ class DeflateDeviceCodec:
                          params: InternalParams) -> list[CompressedChunk]:
         """Hybrid fast path: the device runs the sort-based LZ77 candidate
         search (ops/match_finder.py, the ASIC role) and the native host
-        verifies/extends/entropy-codes (qz_deflate_candidates).  Measured
-        on the target chip: 6.7 ms per 2 MB of device compute (~314 MB/s)
-        vs the 147 MB/s CPU funnel, with compressed size <= zlib at the
-        same level (tools/bench_hybrid.py).  The reference splits work the
-        same way between the ASIC search engine and the driver assembly
-        (src/qatzip.c:1483-1764)."""
+        verifies/extends/entropy-codes (qz_deflate_candidates), with
+        compressed size <= zlib at the same level.  The reference splits
+        work the same way between the ASIC search engine and the driver
+        assembly (src/qatzip.c:1483-1764)."""
         import numpy as np
 
         from qatzip_tpu.native import qzcore as native
@@ -138,11 +133,11 @@ class DeflateDeviceCodec:
             use_packed = bool(_devcal._load().get("pack_wins", False))
         use_packed = use_packed and int(
             _os.environ.get("QATZIP_TPU_MF_STRIDE", "1")) == 1
-        # L1/L2 default speed point (round-4 validation, PERF.md): stride-2
-        # indexing halves both sorts (0.38 -> 0.67 GB/s device compute) and
-        # depth 16 + the parser's two-sided neighbour probes keep the ratio
-        # >= zlib L1 (2.1198 vs 2.1098 on the pinned corpus).  The packed
-        # D2H format keeps stride 1 (its classes assume dense candidates).
+        # L1/L2 default speed point: stride-2 indexing halves both sorts,
+        # and depth 16 + the parser's two-sided neighbour probes keep the
+        # ratio >= zlib L1 (2.1198 vs 2.1098 on the pinned corpus).  The
+        # packed D2H format keeps stride 1 (its classes assume dense
+        # candidates).
         stride_env = _os.environ.get("QATZIP_TPU_MF_STRIDE")
         if use_packed:
             stride = 1
@@ -301,7 +296,7 @@ class DeflateDeviceCodec:
         return out
 
     MAX_DECODE_BATCH = 8      # speculative engine rounds
-    LOCKSTEP_BATCH = 128      # one block per lane (pallas_inflate.LANES)
+    LOCKSTEP_BATCH = 512      # chunks per inflate_batch call (PI.LANES)
 
     def decompress_chunks(self, payloads, hints, params):
         """Device inflate with per-chunk CPU failover (the reference's
@@ -316,8 +311,8 @@ class DeflateDeviceCodec:
         from qatzip_tpu.ops import deflate_decode as dd
 
         kind = _checksum_kind(params)
-        # the lockstep engine decodes 128 blocks per round (one per
-        # sublane row); feeding it smaller batches idles lanes
+        # the lockstep engine decodes up to LANES blocks per device call;
+        # feeding it smaller batches idles lanes
         bsz = (self.MAX_DECODE_BATCH
                if _os.environ.get("QATZIP_TPU_INFLATE", "lockstep") == "spec"
                else self.LOCKSTEP_BATCH)

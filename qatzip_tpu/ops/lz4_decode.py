@@ -2,7 +2,7 @@
 
 The reference decompresses LZ4 frames through the same DC hardware API as
 deflate (src/qatzip.c:2103-2355, LZ4 framing parse src/qatzip_utils.c:
-1232-1345).  The TPU translation: token parsing is byte-oriented and
+1232-1345).  The device translation: token parsing is byte-oriented and
 embarrassingly position-parallel, so every byte offset speculatively
 parses as a sequence start (elementwise + a few gathers), the real
 sequence chain is materialized by pointer doubling from offset 0, and

@@ -1,17 +1,12 @@
 """K1 v2: sort-based LZ77 candidate finder (the device half of the hybrid
 deflate pipeline).
 
-True-sync device measurements (tools/probe_true.py, PERF.md) show this
-platform's only fast primitives are sorts (~1.6 ns/elem, payload operands
-~0.25 ns/elem), elementwise chains, cumulative scans, and one-hot MXU
-matmuls — every gather/scatter form costs ~10 ns/elem regardless of
-source width.  The v1 encoder's parse/walk stages were gather-bound; this
-finder is built from exactly two sorts plus elementwise ops and hands the
-per-position candidate distances to the native parser
-(qz_deflate_candidates in native/qzdeflate.cpp), which verifies and
-extends matches by direct byte compare — the reference's split between
-the ASIC search engine and the driver (src/qatzip.c:1483-1764) with the
-TPU playing the search engine.
+The finder is built from exactly two sorts plus elementwise ops, with no
+gathers or scatters, and hands the per-position candidate distances to the
+native parser (qz_deflate_candidates in native/qzdeflate.cpp), which
+verifies and extends matches by direct byte compare — the reference's
+split between the ASIC search engine and the driver
+(src/qatzip.c:1483-1764) with the device playing the search engine.
 
 Pipeline per 64KB block (batched [B, n]):
   1. 3-byte hash keys  key1 = h15 << 16 | pos16   (elementwise)
@@ -38,16 +33,8 @@ DEPTH = 4          # hash-chain depth (level->depth map lives in caller)
 TOO_FAR = 4096     # len-3 matches beyond this distance are not worth bits
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
 def find_candidates(data: jnp.ndarray, lengths: jnp.ndarray,
                     depth: int = DEPTH,
-                    use_pallas: bool | None = None,
                     stride: int | None = None,
                     rank8: bool | None = None) -> jnp.ndarray:
     """data: uint8[B, n+8] zero-padded, n <= 65536 pow2; lengths: int32[B].
@@ -55,13 +42,7 @@ def find_candidates(data: jnp.ndarray, lengths: jnp.ndarray,
     Returns uint16[B, n]: per-position candidate distance (0 = none).
     Candidates are verified to a 3-/4-/8-byte prefix only — the native
     parser re-verifies and extends to the exact length.
-
-    The candidate-select stage runs as a Pallas VMEM kernel on TPU
-    (ops/pallas_select.py); the XLA path below is the reference
-    implementation and the non-TPU fallback.
     """
-    if use_pallas is None:
-        use_pallas = _on_tpu()
     if stride is None:
         import os
 
@@ -75,15 +56,14 @@ def find_candidates(data: jnp.ndarray, lengths: jnp.ndarray,
         # at a small ratio cost — only sound where the parser's two-sided
         # neighbour probes recover coverage (stride >= 2).
         rank8 = os.environ.get("QATZIP_TPU_MF_RANK8", "1") != "0"
-    return _find_candidates_impl(data, lengths, depth, bool(use_pallas),
-                                 int(stride), bool(rank8))
+    return _find_candidates_impl(data, lengths, depth, int(stride),
+                                 bool(rank8))
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("depth", "use_pallas", "stride", "rank8"))
+@functools.partial(jax.jit, static_argnames=("depth", "stride", "rank8"))
 def _find_candidates_impl(data: jnp.ndarray, lengths: jnp.ndarray,
-                          depth: int, use_pallas: bool,
-                          stride: int = 1, rank8: bool = True) -> jnp.ndarray:
+                          depth: int, stride: int = 1,
+                          rank8: bool = True) -> jnp.ndarray:
     _INVALID = _U32(_INVALID_V)
     B = data.shape[0]
     n = data.shape[1] - 8
@@ -117,7 +97,8 @@ def _find_candidates_impl(data: jnp.ndarray, lengths: jnp.ndarray,
                else (key1[:, :lim:stride], b4[:, :lim:stride]))
     else:
         ops = (key1, b4, b4b) if rank8 else (key1, b4)
-    sorted_ops = jax.lax.sort(ops, num_keys=1, is_stable=True)
+    with jax.named_scope("mf_sort_hash"):
+        sorted_ops = jax.lax.sort(ops, num_keys=1, is_stable=True)
     if rank8:
         sk, sb4, sb4b = sorted_ops
     else:
@@ -126,18 +107,13 @@ def _find_candidates_impl(data: jnp.ndarray, lengths: jnp.ndarray,
 
     cur_pos = (sk & _U32(0xFFFF)).astype(jnp.int32)
     cur_ok = sk != _INVALID
+    cur_h = sk >> _U32(16)
 
-    if use_pallas and n % 1024 == 0:
-        from qatzip_tpu.ops import pallas_select
+    def shift_right(a, k, fill):
+        pad = jnp.full((B, k), fill, a.dtype)
+        return jnp.concatenate([pad, a[:, :-k]], axis=-1)
 
-        dist_sorted = pallas_select.select_candidates(sk, sb4, sb4b, depth)
-    else:
-        cur_h = sk >> _U32(16)
-
-        def shift_right(a, k, fill):
-            pad = jnp.full((B, k), fill, a.dtype)
-            return jnp.concatenate([pad, a[:, :-k]], axis=-1)
-
+    with jax.named_scope("mf_select"):
         best8 = jnp.zeros((B, n), jnp.int32)   # nearest, 8-byte prefix
         best4 = jnp.zeros((B, n), jnp.int32)   # nearest, 4-byte prefix
         best3 = jnp.zeros((B, n), jnp.int32)   # nearest, 3-byte prefix
@@ -164,12 +140,12 @@ def _find_candidates_impl(data: jnp.ndarray, lengths: jnp.ndarray,
     # unscramble: key2 = pos<<16 keeps sorted row i aligned with position i
     # (with stride, sorted row i aligns with position stride*i)
     key2 = jnp.where(cur_ok, (cur_pos.astype(_U32) << _U32(16)), _INVALID)
-    _, dist_pos = jax.lax.sort((key2, dist_sorted.astype(_U32)), num_keys=1,
-                               is_stable=True)
+    with jax.named_scope("mf_sort_pos"):
+        _, dist_pos = jax.lax.sort((key2, dist_sorted.astype(_U32)),
+                                   num_keys=1, is_stable=True)
     if stride > 1:
         # interleave with zero columns via stack+reshape — a layout-only
-        # transform XLA lowers to a cheap copy (the `.at[::stride].set`
-        # scatter form costs ~10 ns/elem on this target, PERF.md checklist)
+        # transform, no scatter
         parts = [dist_pos] + [jnp.zeros_like(dist_pos)] * (stride - 1)
         full = jnp.stack(parts, axis=-1).reshape(B, -1)
         if full.shape[1] < n_full:   # ragged tail: no candidates there
@@ -201,12 +177,9 @@ EXC_PER_CHUNK = 16
 CHUNK_P = 64
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("depth", "use_pallas", "stride"))
-def _find_candidates_packed_impl(data, lengths, depth, use_pallas, stride):
-    import jax.numpy as jnp
-
-    d = _find_candidates_impl(data, lengths, depth, use_pallas,
+@functools.partial(jax.jit, static_argnames=("depth", "stride"))
+def _find_candidates_packed_impl(data, lengths, depth, stride):
+    d = _find_candidates_impl(data, lengths, depth,
                               stride).astype(jnp.uint32)
     B, n = d.shape
     prev = jnp.concatenate([jnp.zeros((B, 1), d.dtype), d[:, :-1]], axis=1)
@@ -237,14 +210,10 @@ def _find_candidates_packed_impl(data, lengths, depth, use_pallas, stride):
 
 
 def find_candidates_packed(data: jnp.ndarray, lengths: jnp.ndarray,
-                           depth: int = DEPTH,
-                           use_pallas: bool | None = None) -> jnp.ndarray:
+                           depth: int = DEPTH) -> jnp.ndarray:
     """Packed variant of find_candidates: u8[B, 3n/4] per the format above
     (stride mode is not packed — the stride knob already trades ratio)."""
-    if use_pallas is None:
-        use_pallas = _on_tpu()
-    return _find_candidates_packed_impl(data, lengths, depth,
-                                        bool(use_pallas), 1)
+    return _find_candidates_packed_impl(data, lengths, depth, 1)
 
 
 def find_candidates_batch(data_np: np.ndarray, lengths_np: np.ndarray,

@@ -1,27 +1,26 @@
 """Lockstep DEFLATE entropy decoder — the device half of the hybrid
-inflate pipeline (round-4 replacement for the speculative per-bit decoder).
+inflate pipeline.
 
 Design (mirrors the hybrid ENCODER's device/host split): the device decodes
-the serial Huffman/entropy half of DEFLATE for up to 128 independent blocks
-in lockstep — one block per sublane row, every step decoding one symbol per
-block — and emits fixed-width token records at regular [step, block] slots.
+the serial Huffman/entropy half of DEFLATE for many independent blocks in
+lockstep — one block per lane, every step decoding one symbol per block —
+and emits fixed-width token records at regular [step, block] slots.
 The host then applies tokens (the LZ77 window-copy half the QAT ASIC has
 dedicated silicon for: native qz_apply_tokens, qzcore.cpp) and carries the
 32KB history between rounds.  Reference HW decompress role:
 src/qatzip.c:2103-2355.
 
-Two drivers share one step function (`decode_step`):
-  * XLA driver (`_decode_xla`): lax.while_loop + take_along_axis — runs
-    anywhere (the CPU test mesh) and is the reference implementation.
-  * Pallas driver (ops/pallas_inflate_kernel.py): per-block table regions
-    as 128-wide VMEM slabs, one-hot masked-reduction window refill (no
-    dynamic addressing — every dynamic-offset construct crashes Mosaic on
-    this target; tools/probe_inflate_step*.py), token tiles DMA'd to HBM.
+Two drivers share one step function (`decode_step`) and one table layout:
+  * XLA driver (`_decode_xla`): lax.while_loop + take_along_axis — the
+    plain reference, and the decoder on the CPU.
+  * Pallas-Triton driver (`_decode_triton`): the step loop runs inside one
+    kernel, one lane per GPU thread, table and stream fetches as gather
+    loads — the decoder on a GPU, where the XLA loop launches its kernels
+    and reads its predicate back once per step.
 
 Wire knowledge (RFC1951): per-block two-level Huffman tables — 9-bit root
 + subtables for codes >9 bits — built host-side per deflate block.  Entries
-are u16, packed two per u32 cell so a 512-entry root costs two 128-wide
-gathers:
+are u16, packed two per u32 cell:
 
   region: u32[512] cells = root u16[512] (cells 0..255)
                          + subtable area u16[512] (cells 256..511)
@@ -51,45 +50,14 @@ import numpy as np
 
 from qatzip_tpu.ops import deflate_tables as T
 
-LANES = 128          # blocks decoded in lockstep
-CELLS = 512          # u32 cells per XLA-driver region (root 256 + sub 256)
-ROOT_BITS = 9        # XLA-driver root bits
-SUB_ENTRIES = 512    # sub-area entries (256 cells) in every region layout
-
-# Pallas (lane-major) driver region layout: the one-hot fetch cost is
-# proportional to the area's ROW count, so both roots and sub areas
-# shrink to measured demand.  On real zlib tables (L1/6/9, three
-# corpora) the worst-case sub demand is 278 entries for an 8-bit litlen
-# root and 22 for a 7-bit dist root; the 384/64-entry sub areas leave
-# headroom, and overflow on adversarial-but-legal tables falls back to
-# the CPU path per block.
-PALLAS_LL_ROOT_BITS = 8
-PALLAS_D_ROOT_BITS = 7
-PALLAS_LL_SUB_ENTRIES = 384
-PALLAS_D_SUB_ENTRIES = 64
-PALLAS_LL_CELLS = ((1 << PALLAS_LL_ROOT_BITS) // 2
-                   + PALLAS_LL_SUB_ENTRIES // 2)   # 320
-PALLAS_D_CELLS = ((1 << PALLAS_D_ROOT_BITS) // 2
-                  + PALLAS_D_SUB_ENTRIES // 2)     # 96
-
-
-def pallas_active() -> bool:
-    """True when decode_blocks will dispatch to the Pallas driver (the
-    region layout the caller must build depends on this)."""
-    import jax
-
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:
-        return False
-
-
-def region_spec(use_pallas: bool):
-    """(ll_root_bits, d_root_bits, ll_cells, d_cells) for the driver."""
-    if use_pallas:
-        return (PALLAS_LL_ROOT_BITS, PALLAS_D_ROOT_BITS,
-                PALLAS_LL_CELLS, PALLAS_D_CELLS)
-    return (ROOT_BITS, ROOT_BITS, CELLS, CELLS)
+# At most LANES blocks per device call (one lane each).  On the H100 the
+# kernel's time per call barely grows with lanes (each lane runs on its own
+# thread), so 512 lanes decode a pass over 512 64 KB chunks in a quarter of
+# the device time that 128 take (PERF.md, PR 1).
+LANES = 512
+CELLS = 512          # u32 cells per table region (root 256 + sub 256)
+ROOT_BITS = 9        # root-table bits
+SUB_ENTRIES = 512    # sub-area entries (256 cells)
 
 
 # ---------------------------------------------------------------------------
@@ -113,8 +81,7 @@ def _pack_cells(u16: np.ndarray) -> np.ndarray:
 
 
 def _build_twolevel(lens: np.ndarray, entry16: np.ndarray,
-                    valid: np.ndarray, root_bits: int = ROOT_BITS,
-                    sub_entries: int = SUB_ENTRIES) -> np.ndarray:
+                    valid: np.ndarray) -> np.ndarray:
     """Build the packed region from per-symbol code lengths and u16 entries
     (clen/kind/payload already packed; clen filled in here).  ``valid``
     marks symbols legal in a stream — invalid ones (286/287, dist 30/31)
@@ -123,6 +90,7 @@ def _build_twolevel(lens: np.ndarray, entry16: np.ndarray,
     over-subscribed codes or subtable overflow (caller falls back to the
     CPU path).  Vectorized per code length — one build per dynamic deflate
     block is on the round-trip hot path."""
+    root_bits, sub_entries = ROOT_BITS, SUB_ENTRIES
     lens = lens.astype(np.int64)
     codes = T.canonical_codes(lens.astype(np.int32)).astype(np.int64)
     if ((codes >> np.maximum(lens, 1)) != 0).any():
@@ -168,8 +136,7 @@ def _build_twolevel(lens: np.ndarray, entry16: np.ndarray,
     return np.concatenate([_pack_cells(root), _pack_cells(sub)])
 
 
-def build_ll_region(lens: np.ndarray,
-                    root_bits: int = ROOT_BITS) -> np.ndarray:
+def build_ll_region(lens: np.ndarray) -> np.ndarray:
     """Packed litlen region from code lengths (hlit entries)."""
     nsym = len(lens)
     e = np.zeros(nsym, np.uint16)
@@ -181,29 +148,22 @@ def build_ll_region(lens: np.ndarray,
     hi = min(nsym, 286)
     for s in range(257, hi):
         e[s] = (1 << 4) | ((s - 257) << 6)
-    sub = (PALLAS_LL_SUB_ENTRIES if root_bits == PALLAS_LL_ROOT_BITS
-           else SUB_ENTRIES)
-    return _build_twolevel(lens, e, sym < 286, root_bits, sub)
+    return _build_twolevel(lens, e, sym < 286)
 
 
-def build_d_region(lens: np.ndarray,
-                   root_bits: int = ROOT_BITS) -> np.ndarray:
+def build_d_region(lens: np.ndarray) -> np.ndarray:
     """Packed distance region from code lengths (hdist entries)."""
     nsym = len(lens)
     e = np.zeros(nsym, np.uint16)
     hi = min(nsym, 30)
     e[:hi] = (np.arange(hi, dtype=np.uint16)) << 6
-    sub = (PALLAS_D_SUB_ENTRIES if root_bits == PALLAS_D_ROOT_BITS
-           else SUB_ENTRIES)
-    return _build_twolevel(lens, e, np.arange(nsym) < 30, root_bits, sub)
+    return _build_twolevel(lens, e, np.arange(nsym) < 30)
 
 
-@functools.lru_cache(maxsize=4)
-def static_regions(root_bits_ll: int = ROOT_BITS,
-                   root_bits_d: int = ROOT_BITS
-                   ) -> tuple[np.ndarray, np.ndarray]:
-    return (build_ll_region(T.STATIC_LITLEN_LEN, root_bits_ll),
-            build_d_region(T.STATIC_DIST_LEN, root_bits_d))
+@functools.lru_cache(maxsize=1)
+def static_regions() -> tuple[np.ndarray, np.ndarray]:
+    return (build_ll_region(T.STATIC_LITLEN_LEN),
+            build_d_region(T.STATIC_DIST_LEN))
 
 
 # ---------------------------------------------------------------------------
@@ -241,9 +201,7 @@ def _resolve(root_fetch, sub_fetch, bits, root_bits):
     return jnp.where(is_sub, e2, e), ~is_sub
 
 
-def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st,
-                ll_root_bits: int = ROOT_BITS,
-                d_root_bits: int = ROOT_BITS):
+def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st):
     """One lockstep symbol decode.  ``st`` = (bitpos i32, done b, err b,
     outcnt i32, end_bit i32); ``peek2(bitpos) -> (u32, u32)`` returns the
     next 64 stream bits as two words (ONE gather level per step — the
@@ -258,7 +216,7 @@ def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st,
     _u = jnp.uint32
 
     b0, b1 = peek2(bitpos)
-    e, at_root = _resolve(ll_root, ll_sub, b0, ll_root_bits)
+    e, at_root = _resolve(ll_root, ll_sub, b0, ROOT_BITS)
     clen = (e & _u(15)).astype(jnp.int32)
     kind = ((e >> _u(4)) & _u(3)).astype(jnp.int32)
     bad = (e == _u(0)) | (kind == 3)  # unresolved subptr = corrupt stream
@@ -281,7 +239,7 @@ def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st,
 
     u1 = used1.astype(_u)
     bits2 = (b0 >> u1) | ((b1 << (_u(31) - u1)) << _u(1))
-    ed, _ = _resolve(d_root, d_sub, bits2, d_root_bits)
+    ed, _ = _resolve(d_root, d_sub, bits2, ROOT_BITS)
     dclen = (ed & _u(15)).astype(jnp.int32)
     dbad = (ed == _u(0)) | (((ed >> _u(4)) & _u(3)) != 0)
     ds = ((ed >> _u(6)) & _u(31)).astype(jnp.int32)
@@ -312,7 +270,7 @@ def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st,
     # second symbol (match, EOB, subtable, invalid) simply defers to the
     # next step.
     pair = active & islit & at_root
-    e2 = _root_entry(ll_root, b0 >> clen.astype(_u), ll_root_bits)
+    e2 = _root_entry(ll_root, b0 >> clen.astype(_u), ROOT_BITS)
     lit2 = pair & (e2 != _u(0)) & (((e2 >> _u(4)) & _u(3)) == _u(0))
     clen2 = (e2 & _u(15)).astype(jnp.int32)
     sym2 = (e2 >> _u(6)) & _u(0xFF)
@@ -330,7 +288,7 @@ def decode_step(peek2, ll_root, ll_sub, d_root, d_sub, st,
 
 
 # ---------------------------------------------------------------------------
-# XLA driver (reference implementation; runs on the CPU test mesh)
+# XLA driver (plain reference; the CPU path)
 # ---------------------------------------------------------------------------
 @functools.partial(
     __import__("jax").jit, static_argnames=("max_steps",))
@@ -379,39 +337,182 @@ def _decode_xla(stream_words, bit0, nbits, tll, td, active0, max_steps: int):
     st0 = (bit0, ~active0, jnp.zeros((B,), jnp.bool_),
            jnp.zeros((B,), jnp.int32), jnp.full((B,), -1, jnp.int32))
     nsteps, st, tokens = jax.lax.while_loop(cond, body, (0, st0, tokens0))
+    return (tokens,) + _finish(st, active0, nbits) + (nsteps,)
+
+
+def _finish(st, active0, nbits):
+    """(err, outcnt, end_bit) from the final lane state: a lane still
+    undone at max_steps, that ran past its stream, or that never reached
+    its EOB is decoded on the CPU instead."""
     bitpos, done, err, outcnt, end_bit = st
-    # a lane still undone at max_steps, or that ran past its stream, is
-    # decoded on the CPU instead
     err = err | (active0 & ~done) | (active0 & (bitpos > nbits))
     err = err | (active0 & ~err & (end_bit < 0))
-    return tokens, err, outcnt, end_bit, nsteps
+    return err, outcnt, end_bit
+
+
+# ---------------------------------------------------------------------------
+# Pallas-Triton driver (GPU): the whole step loop inside one kernel
+# ---------------------------------------------------------------------------
+GROUP = 32   # lanes per Triton program: one lane per thread of one warp
+
+
+def lane_count(live: int) -> int:
+    """Lanes for a call with ``live`` blocks: a power of two from GROUP to
+    LANES, so a small request does not pay for LANES lanes of tokens and
+    each (lanes, buckets) shape compiles once."""
+    b = GROUP
+    while b < live:
+        b <<= 1
+    return min(b, LANES)
+
+
+def _triton_kernel(stream_ref, bit0_ref, nbits_ref, tll_ref, td_ref,
+                   active_ref, _tokens_in, tok_ref, err_ref, cnt_ref,
+                   end_ref, ns_ref, *, max_steps: int):
+    """One program decodes GROUP lanes until all of them are done.  Table
+    and stream fetches are per-lane gather loads; each step stores one
+    token row.  Token rows past a program's last step keep the zeros of
+    the aliased input."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    NW = stream_ref.shape[1]
+    _u = jnp.uint32
+    lo = pl.program_id(0) * GROUP
+    span = pl.ds(lo, GROUP)
+    lanes = lo + jnp.arange(GROUP, dtype=jnp.int32)
+
+    def peek2(bitpos):
+        wi = jnp.clip(bitpos >> 5, 0, NW - 3)
+        sh = (bitpos & 31).astype(_u)
+        w0 = plt.load(stream_ref.at[lanes, wi])
+        w1 = plt.load(stream_ref.at[lanes, wi + 1])
+        w2 = plt.load(stream_ref.at[lanes, wi + 2])
+        b0 = (w0 >> sh) | ((w1 << (_u(31) - sh)) << _u(1))
+        b1 = (w1 >> sh) | ((w2 << (_u(31) - sh)) << _u(1))
+        return b0, b1
+
+    def mk_cell(ref, base):
+        def f(idx):
+            return plt.load(ref.at[lanes, jnp.clip(base + idx, 0, CELLS - 1)])
+        return f
+
+    fetch = (mk_cell(tll_ref, 0), mk_cell(tll_ref, 256),
+             mk_cell(td_ref, 0), mk_cell(td_ref, 256))
+    active0 = plt.load(active_ref.at[span]) != 0
+
+    def cond(carry):
+        step, _bp, done, err, _oc, _eb = carry
+        return (step < max_steps) & (jnp.min(done | err) == 0)
+
+    def body(carry):
+        step, bitpos, done, err, outcnt, end_bit = carry
+        tok, st2 = decode_step(peek2, *fetch,
+                               (bitpos, done != 0, err != 0, outcnt, end_bit))
+        plt.store(tok_ref.at[step, span], tok)
+        bp2, done2, err2, oc2, eb2 = st2
+        return (step + 1, bp2, done2.astype(jnp.int32),
+                err2.astype(jnp.int32), oc2, eb2)
+
+    zeros = jnp.zeros((GROUP,), jnp.int32)
+    carry0 = (0, plt.load(bit0_ref.at[span]), (~active0).astype(jnp.int32),
+              zeros, zeros, jnp.full((GROUP,), -1, jnp.int32))
+    step, bitpos, done, err, outcnt, end_bit = jax.lax.while_loop(
+        cond, body, carry0)
+    err, outcnt, end_bit = _finish(
+        (bitpos, done != 0, err != 0, outcnt, end_bit), active0,
+        plt.load(nbits_ref.at[span]))
+    plt.store(err_ref.at[span], err.astype(jnp.int32))
+    plt.store(cnt_ref.at[span], outcnt)
+    plt.store(end_ref.at[span], end_bit)
+    plt.store(ns_ref.at[span], jnp.full((GROUP,), step, jnp.int32))
+
+
+@functools.partial(
+    __import__("jax").jit, static_argnames=("max_steps", "interpret"))
+def _decode_triton(stream_words, bit0, nbits, tll, td, active0,
+                   max_steps: int, interpret: bool = False):
+    """Same contract as ``_decode_xla``; B must be a multiple of GROUP."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    B = stream_words.shape[0]
+    if B % GROUP:
+        raise ValueError(f"lane count {B} is not a multiple of {GROUP}")
+    lane = jax.ShapeDtypeStruct((B,), jnp.int32)
+    tokens, err, outcnt, end_bit, ns = pl.pallas_call(
+        functools.partial(_triton_kernel, max_steps=max_steps),
+        out_shape=(jax.ShapeDtypeStruct((max_steps, B), jnp.uint32),
+                   lane, lane, lane, lane),
+        grid=(B // GROUP,),
+        input_output_aliases={6: 0},
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=1, num_stages=1),
+        interpret=interpret,
+        name="lockstep_inflate",
+    )(stream_words, bit0, nbits, tll, td, active0.astype(jnp.int32),
+      jnp.zeros((max_steps, B), jnp.uint32))
+    return tokens, err != 0, outcnt, end_bit, jnp.max(ns)
 
 
 # ---------------------------------------------------------------------------
 # Driver dispatch
 # ---------------------------------------------------------------------------
-def decode_blocks(stream_words: np.ndarray, bit0: np.ndarray,
-                  nbits: np.ndarray, tll: np.ndarray, td: np.ndarray,
-                  active: np.ndarray, max_steps: int,
-                  use_pallas: bool | None = None):
-    """Decode one deflate block per lane.  Host numpy in; host numpy out:
-    (tokens[S, B], err[B], outcnt[B], end_bit[B], nsteps)."""
+_READBACK_ROWS = 1024   # token rows are read back in whole multiples of this
+
+
+def decode_fn():
+    """The decoder for this process's device: the Triton kernel on a GPU,
+    the XLA reference elsewhere."""
     import jax
+
+    return _decode_triton if jax.devices()[0].platform == "gpu" \
+        else _decode_xla
+
+
+def device_args(stream_words: np.ndarray, bit0: np.ndarray,
+                nbits: np.ndarray, tll: np.ndarray, td: np.ndarray,
+                active: np.ndarray) -> tuple:
+    """Upload one round's host arrays (the decoder's device inputs)."""
     import jax.numpy as jnp
 
-    if use_pallas is None:
-        # same predicate the region-building callers use (region_spec):
-        # the two must agree or tables and driver mismatch
-        use_pallas = pallas_active()
-    if use_pallas:
-        from qatzip_tpu.ops import pallas_inflate_kernel as K
+    return tuple(jnp.asarray(a) for a in (stream_words, bit0, nbits, tll,
+                                          td, active))
 
-        return K.decode_pallas(stream_words, bit0, nbits, tll, td, active,
-                               max_steps)
-    tokens, err, outcnt, end_bit, nsteps = _decode_xla(
-        jnp.asarray(stream_words), jnp.asarray(bit0), jnp.asarray(nbits),
-        jnp.asarray(tll), jnp.asarray(td), jnp.asarray(active),
+
+def decode_blocks(stream_words: np.ndarray, bit0: np.ndarray,
+                  nbits: np.ndarray, tll: np.ndarray, td: np.ndarray,
+                  active: np.ndarray, max_steps: int):
+    """Decode one deflate block per lane.  Host numpy in; host numpy out:
+    (tokens[S, B], err[B], outcnt[B], end_bit[B], nsteps)."""
+    tokens, err, outcnt, end_bit, nsteps = decode_fn()(
+        *device_args(stream_words, bit0, nbits, tll, td, active),
         max_steps=max_steps)
     ns = int(nsteps)
-    return (np.asarray(tokens[:ns]), np.asarray(err), np.asarray(outcnt),
-            np.asarray(end_bit), ns)
+    # whole multiples of _READBACK_ROWS: slicing at every distinct ns
+    # would compile one slice per ns
+    rows = min(max_steps, -(-ns // _READBACK_ROWS) * _READBACK_ROWS)
+    return (np.asarray(tokens[:rows])[:ns], np.asarray(err),
+            np.asarray(outcnt), np.asarray(end_bit), ns)
+
+
+def time_rounds(rounds, fn=None, reps: int = 3) -> float:
+    """Device-only seconds per pass over recorded decoder calls
+    (``inflate_batch(rounds_out=...)``): inputs are uploaded first, and
+    each pass ends in block_until_ready.  ``fn`` defaults to this
+    device's decoder."""
+    import time
+
+    import jax
+
+    fn = fn or decode_fn()
+    calls = [(device_args(*args), ms) for args, ms in rounds]
+    jax.block_until_ready([fn(*a, max_steps=ms) for a, ms in calls])
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        jax.block_until_ready([fn(*a, max_steps=ms) for a, ms in calls])
+    return (time.perf_counter() - t0) / reps

@@ -1,1 +1,1 @@
-"""Distributed layer: block-data-parallel sharding over TPU meshes."""
+"""Distributed layer: block-data-parallel sharding over device meshes."""

@@ -2,10 +2,10 @@
 
 The reference scales across PCIe devices with up to NumProcesses=64
 processes sharing instances via the driver config
-(config_file/4xxx/multiple_process_opt/4xxx_dev0.conf:86-88).  The TPU
-analog is one JAX process per host over a pod slice: `jax.distributed`
-wires the hosts, blocks shard across the global device set over DCN, and
-per-block compressed lengths all-gather over ICI so every host can compute
+(config_file/4xxx/multiple_process_opt/4xxx_dev0.conf:86-88).  The device
+analog is one JAX process per host: `jax.distributed` wires the hosts,
+blocks shard across the global device set, and per-block compressed
+lengths all-gather over the device interconnect so every host can compute
 global output offsets (SURVEY.md §5 "distributed communication backend").
 """
 from __future__ import annotations
@@ -80,7 +80,7 @@ def host_block_range(total_blocks: int) -> tuple[int, int]:
 def allgather_lengths(local_lengths, axis_name: str = "block"):
     """All-gather per-block compressed lengths over the mesh inside jit —
     every device learns every block's length so global output offsets are
-    computable device-side (ICI collective; the reference has no analog
+    computable device-side (a collective; the reference has no analog
     because its blocks never leave one host)."""
     import jax
 
@@ -89,7 +89,7 @@ def allgather_lengths(local_lengths, axis_name: str = "block"):
 
 def sharded_offsets(mesh, lengths):
     """Global exclusive prefix offsets of per-block lengths, computed with
-    the block axis sharded and an all-gather collective riding ICI."""
+    the block axis sharded and an all-gather collective."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P

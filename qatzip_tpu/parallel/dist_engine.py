@@ -4,7 +4,7 @@ The reference's process-level scaling shares PCIe devices across up to
 NumProcesses=64 processes via the driver section
 (config_file/4xxx/multiple_process_opt/4xxx_dev0.conf:84-92) and its perf
 harness sums per-process throughput (test/performance_tests/
-run_perf_test.sh:72-124).  The TPU-native translation: one JAX process per
+run_perf_test.sh:72-124).  The device translation: one JAX process per
 host over `jax.distributed`; the input's block axis scatters across hosts
 (contiguous ranges, preserving the seq reassembly invariant of reference
 src/qatzip.c:1641-1649); every host compresses its range with the local

@@ -259,7 +259,7 @@ class QzSession:
         self.force_sw = False          # sticky QZ_FORCE_SW mode
         self.inst_hint = -1
         self.end_of_last_block = False
-        # LSM latency matrices: TPU round-trip / post-process / software time
+        # LSM latency matrices: device round-trip / post-process / software time
         self.rrt = LatencyMetrix()
         self.ppt = LatencyMetrix()
         self.swt = LatencyMetrix()

@@ -1,6 +1,6 @@
 """Checksum helpers: crc32/adler32 combination across independent chunks.
 
-The engine compresses chunks independently (possibly on different TPU cores)
+The engine compresses chunks independently (possibly on different devices)
 and combines their checksums in submission order, mirroring the reference's
 crc32_combine use (src/qatzip.c:1707-1714).
 """
@@ -105,16 +105,11 @@ def adler32(data, value: int = 1) -> int:
 
 def xxh32(data, seed: int = 0) -> int:
     """XXH32 via the vendored native implementation (the reference vendors
-    src/xxhash.c with XXH_NAMESPACE=QATZIP_); falls back to the pip
-    `xxhash` wheel when the native library is unavailable."""
-    try:
-        from qatzip_tpu.native import qzcore as _native
+    src/xxhash.c with XXH_NAMESPACE=QATZIP_).  Raises ImportError when
+    libqzcore.so cannot be built."""
+    from qatzip_tpu.native import qzcore as _native
 
-        return _native.xxh32(bytes(data), seed)
-    except Exception:
-        import xxhash as _xx
-
-        return _xx.xxh32(bytes(data), seed).intdigest()
+    return _native.xxh32(bytes(data), seed)
 
 
 class XXH32State:
@@ -192,14 +187,10 @@ class XXH32State:
 
 
 def xxh64(data, seed: int = 0) -> int:
-    try:
-        from qatzip_tpu.native import qzcore as _native
+    """XXH64 via the vendored native implementation (see xxh32)."""
+    from qatzip_tpu.native import qzcore as _native
 
-        return _native.xxh64(bytes(data), seed)
-    except Exception:
-        import xxhash as _xx
-
-        return _xx.xxh64(bytes(data), seed).intdigest()
+    return _native.xxh64(bytes(data), seed)
 
 
 # ---------------------------------------------------------------------------

@@ -90,7 +90,7 @@ def test_host_block_range_partition():
 
 def test_public_api_sharded_roundtrip(monkeypatch, corpus_factory):
     """Engine-level block-DP: a many-chunk request through the public API
-    shards the batch axis over the local mesh (VERDICT #4 wiring)."""
+    shards the batch axis over the local mesh."""
     monkeypatch.setenv("QATZIP_TPU_DEVICE", "1")
     import qatzip_tpu as qz
     from qatzip_tpu.constants import QzDataFormat

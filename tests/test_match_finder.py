@@ -1,5 +1,4 @@
-"""Match-finder v2 tests: the hybrid device stage vs the host oracle, and
-the Pallas candidate-select kernel (interpret mode) vs its XLA reference."""
+"""Match-finder v2 tests: the hybrid device stage vs the host oracle."""
 import zlib
 
 import numpy as np
@@ -45,63 +44,6 @@ def test_candidates_ratio_at_least_zlib(corpus_factory):
         co = zlib.compressobj(1, zlib.DEFLATED, -15)
         zl += len(co.compress(d) + co.flush())
     assert ours <= zl * 1.01 + 64
-
-
-def test_pallas_select_matches_xla_reference(corpus_factory):
-    """The Pallas VMEM select kernel (interpret mode on CPU) must produce
-    the identical candidate distances as the XLA reference path."""
-    import jax
-    import jax.numpy as jnp
-
-    from qatzip_tpu.ops import pallas_select
-
-    datas = [corpus_factory(4096, k) for k in ("text", "constant")]
-    arr, lens = _pack(datas)
-    B, n = arr.shape[0], 4096
-    d32 = jnp.asarray(arr).astype(jnp.uint32)
-    b4 = (d32[:, 0:n] | (d32[:, 1:n + 1] << 8)
-          | (d32[:, 2:n + 2] << 16) | (d32[:, 3:n + 3] << 24))
-    b4b = jnp.concatenate([b4[:, 4:], jnp.zeros((B, 4), jnp.uint32)], axis=-1)
-    h = ((b4 & jnp.uint32(0xFFFFFF)) * jnp.uint32(2654435761)) >> jnp.uint32(17)
-    pos = jnp.arange(n, dtype=jnp.int32)[None, :]
-    valid = pos + 2 < jnp.asarray(lens)[:, None]
-    key1 = jnp.where(valid, (h << jnp.uint32(16)) | pos.astype(jnp.uint32),
-                     jnp.uint32(0xFFFFFFFF))
-    sk, sb4, sb4b = jax.lax.sort((key1, b4, b4b), num_keys=1, is_stable=True)
-
-    got = np.asarray(pallas_select.select_candidates(sk, sb4, sb4b, 4,
-                                                     interpret=True))
-
-    # XLA reference (same math as match_finder's fallback branch)
-    def shift_right(a, k, fill):
-        pad = jnp.full((B, k), fill, a.dtype)
-        return jnp.concatenate([pad, a[:, :-k]], axis=-1)
-
-    INV = jnp.uint32(0xFFFFFFFF)
-    cur_pos = (sk & jnp.uint32(0xFFFF)).astype(jnp.int32)
-    cur_h = sk >> jnp.uint32(16)
-    cur_ok = sk != INV
-    best8 = jnp.zeros((B, n), jnp.int32)
-    best4 = jnp.zeros((B, n), jnp.int32)
-    best3 = jnp.zeros((B, n), jnp.int32)
-    for dd in range(1, 5):
-        ck = shift_right(sk, dd, INV)
-        cb4 = shift_right(sb4, dd, jnp.uint32(0))
-        cb4b = shift_right(sb4b, dd, jnp.uint32(0))
-        cpos = (ck & jnp.uint32(0xFFFF)).astype(jnp.int32)
-        dist = cur_pos - cpos
-        ok = (cur_ok & (ck != INV) & ((ck >> jnp.uint32(16)) == cur_h)
-              & (dist >= 1) & (dist <= 32767))
-        eq4 = ok & (cb4 == sb4)
-        eq8 = eq4 & (cb4b == sb4b)
-        eq3 = ok & (((cb4 ^ sb4) & jnp.uint32(0xFFFFFF)) == 0)
-        best8 = jnp.where((best8 == 0) & eq8, dist, best8)
-        best4 = jnp.where((best4 == 0) & eq4, dist, best4)
-        best3 = jnp.where((best3 == 0) & eq3, dist, best3)
-    best3 = jnp.where(best3 < 4096, best3, 0)
-    want = np.asarray(jnp.where(best8 > 0, best8,
-                                jnp.where(best4 > 0, best4, best3)))
-    assert (got == want).all()
 
 
 def test_candidates_stride_mode_valid(corpus_factory):

@@ -1,6 +1,7 @@
 """Lockstep inflate engine tests: packed two-level tables, the shared
-decode step via the XLA driver, the Pallas driver in interpreter mode,
-token appliers (native vs python), and the packed candidate D2H format.
+decode step via the XLA driver, the Pallas-Triton driver in interpreter
+mode against it, token appliers (native vs python), and the packed
+candidate D2H format.
 """
 import zlib
 
@@ -17,37 +18,32 @@ def _raw(data: bytes, level: int = 6) -> bytes:
     return co.compress(data) + co.flush()
 
 
-def _decode_one(payload: bytes, hint: int, use_pallas: bool,
-                interpret: bool = False, NW: int = 4096,
-                max_steps: int = 16384):
-    """Drive decode_blocks directly for a single-block stream whose first
-    deflate block is a Huffman block starting at bit 3."""
-    s = dd._Stream(payload, hint, 0)
+def _one_block_args(payload: bytes, NW: int = 4096, lanes: int = 128):
+    """Decoder inputs for a single-block stream whose first deflate block
+    is a Huffman block, placed in lane 0."""
+    s = dd._Stream(payload, 0, 0)
     kind = dd._parse_one_header(s)
     assert kind == "huff"
-    spec = PI.region_spec(use_pallas)
-    tll, td = dd._lockstep_regions(s, spec)
-    B = PI.LANES
+    tll, td = dd._lockstep_regions(s)
     byte0 = s.bits.pos >> 3
     pv = np.frombuffer(payload, np.uint8, len(payload) - byte0, byte0)
-    stream8 = np.zeros((B, NW * 4), np.uint8)
+    stream8 = np.zeros((lanes, NW * 4), np.uint8)
     stream8[0, :len(pv)] = pv
-    bit0 = np.zeros(B, np.int32)
+    bit0 = np.zeros(lanes, np.int32)
     bit0[0] = s.bits.pos & 7
-    nbits = np.zeros(B, np.int32)
+    nbits = np.zeros(lanes, np.int32)
     nbits[0] = len(pv) * 8
-    tlls = np.zeros((B, spec[2]), np.uint32)
-    tds = np.zeros((B, spec[3]), np.uint32)
+    tlls = np.zeros((lanes, PI.CELLS), np.uint32)
+    tds = np.zeros((lanes, PI.CELLS), np.uint32)
     tlls[0], tds[0] = tll, td
-    active = np.zeros(B, bool)
+    active = np.zeros(lanes, bool)
     active[0] = True
-    if use_pallas:
-        from qatzip_tpu.ops import pallas_inflate_kernel as K
+    return stream8.view("<u4"), bit0, nbits, tlls, tds, active
 
-        return K.decode_pallas(stream8.view("<u4"), bit0, nbits, tlls, tds,
-                               active, max_steps, interpret=interpret)
-    return PI.decode_blocks(stream8.view("<u4"), bit0, nbits, tlls, tds,
-                            active, max_steps, use_pallas=False)
+
+def _decode_one(payload: bytes, hint: int, max_steps: int = 16384):
+    """Drive decode_blocks (this process's decoder) on one block."""
+    return PI.decode_blocks(*_one_block_args(payload), max_steps)
 
 
 @pytest.mark.parametrize("level", [1, 6, 9])
@@ -55,11 +51,68 @@ def _decode_one(payload: bytes, hint: int, use_pallas: bool,
 def test_xla_driver_bit_exact(corpus_factory, kind, level):
     data = corpus_factory(3000, kind)
     payload = _raw(data, level)
-    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data),
-                                                   use_pallas=False)
+    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data))
     assert not err[0]
     out = dd._apply_tokens_py(tokens[:, 0], b"", int(outcnt[0]))
     assert out == data
+
+
+@pytest.mark.parametrize("level", [1, 6, 9])
+@pytest.mark.parametrize("kind", ["text", "iterative", "constant"])
+def test_triton_driver_interpret_matches_xla(corpus_factory, kind, level):
+    """The Pallas-Triton driver (interpreter mode) must return exactly the
+    XLA reference's tokens, lane flags and step count, and the tokens must
+    rebuild the data."""
+    import jax
+
+    data = corpus_factory(1500, kind)
+    args = PI.device_args(*_one_block_args(_raw(data, level), NW=1024,
+                                           lanes=2 * PI.GROUP))
+    want = jax.device_get(PI._decode_xla(*args, max_steps=1024))
+    got = jax.device_get(PI._decode_triton(*args, max_steps=1024,
+                                           interpret=True))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    tokens, err, outcnt = got[0], got[1], got[2]
+    assert not err[0]
+    assert dd._apply_tokens_py(tokens[:, 0], b"", int(outcnt[0])) == data
+
+
+def test_triton_driver_rejects_ragged_lane_count():
+    args = PI.device_args(*_one_block_args(_raw(b"abc" * 50), NW=1024,
+                                           lanes=PI.GROUP + 1))
+    with pytest.raises(ValueError, match="multiple"):
+        PI._decode_triton(*args, max_steps=1024, interpret=True)
+
+
+def test_decoder_choice_follows_platform():
+    """The CPU test platform decodes with the XLA reference; a GPU with
+    the Triton kernel."""
+    assert PI.decode_fn() is PI._decode_xla
+
+
+def test_readback_trims_to_steps_run(corpus_factory):
+    data = corpus_factory(2000, "text")
+    tokens, err, outcnt, end_bit, ns = _decode_one(_raw(data, 6), len(data))
+    assert tokens.shape == (ns, 128)
+    assert 0 < ns < 1024
+
+
+@pytest.mark.parametrize("live,lanes", [(1, 32), (32, 32), (33, 64),
+                                        (300, 512), (512, 512)])
+def test_lane_count_is_bounded_power_of_two(live, lanes):
+    assert PI.lane_count(live) == lanes
+
+
+def test_round_uses_lanes_for_live_blocks(corpus_factory):
+    """A small request decodes in a small call: the recorded round has
+    lane_count(live) lanes, not LANES."""
+    datas = [corpus_factory(3000, k) for k in ("text", "iterative", "constant")]
+    rounds: list = []
+    res = dd.inflate_batch([_raw(d, 6) for d in datas],
+                           [len(d) for d in datas], rounds_out=rounds)
+    assert [r[0] for r in res] == datas
+    assert rounds and all(args[0].shape[0] == 32 for args, _ in rounds)
 
 
 def test_native_and_python_appliers_agree(corpus_factory):
@@ -67,32 +120,12 @@ def test_native_and_python_appliers_agree(corpus_factory):
 
     data = corpus_factory(20000, "text")
     payload = _raw(data, 6)
-    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data),
-                                                   use_pallas=False)
+    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data))
     assert not err[0]
     t = np.ascontiguousarray(tokens)
     a = native.apply_tokens(t, 0, b"", 0, int(outcnt[0]))
     b = dd._apply_tokens_py(t[:, 0], b"", int(outcnt[0]))
     assert a == b == data
-
-
-def test_pallas_driver_interpret_matches_xla(corpus_factory):
-    """The lane-major Pallas driver in interpreter mode must agree with
-    the XLA reference driver (and zlib) on a small dynamic-Huffman
-    stream."""
-    data = corpus_factory(600, "text")
-    payload = _raw(data, 6)
-    tok_p, err_p, cnt_p, end_p, ns_p = _decode_one(payload, len(data),
-                                                   use_pallas=True,
-                                                   interpret=True,
-                                                   NW=1024, max_steps=1024)
-    assert not err_p[0]
-    out = dd._apply_tokens_py(tok_p[:, 0], b"", int(cnt_p[0]))
-    assert out == data
-    _, err_x, cnt_x, end_x, _ = _decode_one(payload, len(data),
-                                            use_pallas=False)
-    assert int(cnt_p[0]) == int(cnt_x[0])
-    assert int(end_p[0]) == int(end_x[0])
 
 
 def test_region_builder_rejects_oversubscribed():
@@ -164,8 +197,7 @@ def test_literal_pairing_engages_and_is_exact(corpus_factory):
 
     data = corpus_factory(20000, "text")
     payload = _raw(data, 1)
-    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data),
-                                                   use_pallas=False)
+    tokens, err, outcnt, end_bit, ns = _decode_one(payload, len(data))
     assert not err[0]
     lane = np.ascontiguousarray(tokens)[:, 0]
     lits = lane[(lane & 1) == 1]

@@ -5,7 +5,7 @@ import pytest
 
 import qatzip_tpu as qz
 from qatzip_tpu.constants import QzDataFormat
-from tests.conftest import make_corpus
+from conftest import make_corpus
 import random
 
 
